@@ -1,11 +1,11 @@
-"""gsearch_tpu — a TPU-native genome sketch-and-search framework.
+"""gsearch_tpu — a JAX genome sketch-and-search framework for the GPU.
 
 A brand-new JAX/XLA/Pallas implementation of the capabilities of
 jean-pierreBoth/gsearch (Rust/CPU): sketch microbial genomes (DNA or protein
 FASTA) into MinHash-family signatures, index them in an ANN structure, and
 answer genome-similarity queries as Jaccard -> ANI/AAI.
 
-Architecture (TPU-first, not a translation):
+Architecture (accelerator-first, not a translation):
   - host (Python / C++): FASTA ingest, 2-bit/5-bit packing, orchestration,
     JSON persistence (same five-file database layout in spirit as the
     reference: parameters.json / seqdict.json / processing_state.json plus

@@ -6,7 +6,7 @@ distance quantiles, build a coreset (Coreset1 / BMOR streaming k-median)
 or cluster it (ClusterCoreset::compute + dispatch), dump coreset.csv /
 clustercoreset.csv).
 
-TPU-native formulation: the BMOR streaming pass is sequential by design
+Device formulation: the BMOR streaming pass is sequential by design
 (CPU single-pass constraint that does not apply here); we build the
 coreset by D^2 (k-means++-style) sampling — each round scores ALL points'
 distance to the current coreset with the fused distance kernel and samples
@@ -21,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -28,6 +29,8 @@ from ..ops.distance import hamming_frac
 from ..utils import get_logger
 
 log = get_logger(__name__)
+
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def pairwise_distance(q, db, metric: str = "hamming") -> jnp.ndarray:
@@ -37,7 +40,8 @@ def pairwise_distance(q, db, metric: str = "hamming") -> jnp.ndarray:
     reference's DistHamming).  l1 / l2 / cosine mirror the reference
     hnswcore's DataMap dispatch over other stored vector types
     (reference: binaux/src/bin/hnswcore.rs:432-462).  l2/cosine are
-    matmul-form (MXU); l1 chunks the [Q, chunk, S] broadcast.
+    matmul-form, at HIGHEST precision (full f32, not the GPU's TF32 default);
+    l1 chunks the [Q, chunk, S] broadcast.
     """
     if metric == "hamming":
         return hamming_frac(q, db)
@@ -45,12 +49,12 @@ def pairwise_distance(q, db, metric: str = "hamming") -> jnp.ndarray:
     df = jnp.asarray(db, jnp.float32)
     if metric == "l2":
         sq = (qf * qf).sum(-1)[:, None] + (df * df).sum(-1)[None, :]
-        d2 = sq - 2.0 * (qf @ df.T)
+        d2 = sq - 2.0 * jnp.matmul(qf, df.T, precision=_HIGHEST)
         return jnp.sqrt(jnp.maximum(d2, 0.0))
     if metric == "cosine":
         qn = qf / jnp.maximum(jnp.linalg.norm(qf, axis=-1, keepdims=True), 1e-30)
         dn = df / jnp.maximum(jnp.linalg.norm(df, axis=-1, keepdims=True), 1e-30)
-        return 1.0 - qn @ dn.T
+        return 1.0 - jnp.matmul(qn, dn.T, precision=_HIGHEST)
     if metric == "l1":
         chunks = []
         for st in range(0, df.shape[0], 512):

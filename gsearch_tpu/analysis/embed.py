@@ -6,7 +6,7 @@ scale_rho=0.75, beta=1, grad_step=3, nb_sampling_by_edge=10,
 dmap_init=true}, output `database_embedded.csv`, quality estimate from
 edge lengths; CLI dispatch src/bin/gsearch.rs:784-852).
 
-TPU-first formulation: annembed runs asynchronous per-edge SGD with
+Device formulation: annembed runs asynchronous per-edge SGD with
 negative sampling; here each optimization step is a *full-batch* fused
 update — attractive forces from all k-NN edges and repulsive forces from
 fresh uniform negatives per edge, accumulated with scatter-adds.  One

@@ -4,8 +4,9 @@ Capability-equivalent of annembed's fromhnsw module as used by the
 reference (`kgraph_from_hnsw_all(hnsw, knbn)`, KGraph stats, Hubness;
 reference call sites: src/utils/embed.rs:19-33, src/bin/hnsw2knn.rs:101-171).
 
-On TPU the extraction is one batched self-search of the database —
-the graph falls out of the same fused distance + top-k path as requests.
+On an accelerator the extraction is one batched self-search of the
+database — the graph falls out of the same fused distance + top-k path as
+requests.
 """
 
 from __future__ import annotations
@@ -76,21 +77,23 @@ class Hubness:
 
 
 def _exact_searcher(sigs: np.ndarray):
-    """MXU sign-expansion + exact-rerank self-sweep when the database fits
-    one chip's HBM — 30-60x the graph beam's self-search throughput at the
-    reference operating point (65k x 12000).  Returns None (caller falls
-    back to index.search) off-TPU or beyond the compact-mode ceiling."""
-    import jax
+    """int8-GEMM sign-expansion + exact-rerank self-sweep when the database
+    fits one device — a dense sweep instead of one graph beam per node.
+    Returns None (caller falls back to index.search) without an
+    accelerator or beyond the compact-mode ceiling."""
+    from ..utils import device_profile
 
-    if jax.default_backend() != "tpu":
+    prof = device_profile()
+    if not prof.accelerated:
         return None
+    from ..index.flat import FlatIndex
     from ..ops.mxu import MxuSearcher, planned_footprint
 
     n, s = sigs.shape
-    if n < 4096:
+    if n < FlatIndex.MXU_MIN_POINTS:
         return None  # small index: plain search path is already instant
     _, rep_bytes = planned_footprint(n, s)
-    if rep_bytes > 13_000_000_000:
+    if rep_bytes > prof.budget(FlatIndex.RESIDENT_FRACTION):
         return None
     searcher = MxuSearcher(sigs)
     return lambda q, k: searcher.search(q.astype(sigs.dtype), k)

@@ -6,7 +6,7 @@ RevOptDens (dens=1), all-pairs slot-equality Jaccard, distance
 1 - (2J/(1+J))^(1/k), TSV "Query\tReference\tDistance", same-basename
 pairs forced to 0).
 
-TPU formulation: the all-pairs comparison is ONE fused distance-matrix
+Device formulation: the all-pairs comparison is ONE fused distance-matrix
 kernel (ops/distance.py) over the stacked signature matrices instead of a
 rayon loop over pairs.
 """

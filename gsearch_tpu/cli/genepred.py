@@ -4,7 +4,7 @@ Output-set parity with the reference tool (reference:
 binaux/src/bin/FragGeneScanRs.rs:26-339 — reads FASTA, calls genes, writes
 <prefix>.faa (proteins), <prefix>.ffn (nucleotide CDS), <prefix>.gff and
 <prefix>.out (coordinates); order-preserving across records).  The model
-is the TPU codon-HMM in gsearch_tpu/models/genepred.py.
+is the device codon-HMM in gsearch_tpu/models/genepred.py.
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ global --pio and --nbthreads.  As in the reference, add/request/ann accept
 NO algorithm flags — everything is reloaded from the database's
 parameters.json to guarantee coherence (gsearch.rs:55-58,714-742).
 
-Extra (TPU-native additions): --index {auto,flat,hnsw} on tohnsw, and the
+Extra (additions): --index {auto,flat,hnsw} on tohnsw, and the
 `reformat` distance->ANI converter as a subcommand (standalone binary in
 the reference, src/bin/reformat.rs).
 """
@@ -35,7 +35,7 @@ def _add_global(p: argparse.ArgumentParser) -> None:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="gsearch_tpu",
-        description="TPU-native genome sketch-and-search (gsearch capabilities)",
+        description="genome sketch-and-search in JAX (gsearch capabilities)",
     )
     _add_global(ap)
     sub = ap.add_subparsers(dest="command", required=True)
@@ -71,7 +71,7 @@ def build_parser() -> argparse.ArgumentParser:
         "--ef", type=int, default=0,
         help="graph search width; 0 = measured default (256). The reference "
              "hardcodes 5000 (gsearch.rs:893) — pass --ef 5000 for parity; "
-             "the 262k curve (HNSW_BENCH.json) shows no recall gain past 64",
+             "the 262k recall curve showed no recall gain past 64",
     )
 
     # ann (gsearch.rs:537-561); embedder knobs mirror annembed's

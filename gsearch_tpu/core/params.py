@@ -175,7 +175,7 @@ class ComputingParams:
 
     nb_files_par maps to --pio (files read into RAM per IO group);
     nb_threads maps to --nbthreads (host parse workers here — device compute
-    does not need a thread count).  mesh_devices is the TPU-native extra:
+    does not need a thread count).  mesh_devices is the multi-device extra:
     shard sketching and search over a jax device mesh (0 = off, -1 = all
     devices) — the first-class replacement for the reference's bash-level
     N-piece sharding (scripts/multiple_build.sh, multiple_search.sh)."""

@@ -6,7 +6,7 @@ bit-sliced Bloom index over genomes in k-mer or minimizer mode with
 configurable Bloom length / hash count; identify streaming reads against it
 with a false-positive correction; README.md:456-531).
 
-Index layout (TPU-first): the classic BIGSI bit matrix is stored as
+Index layout (device-first): the classic BIGSI bit matrix is stored as
 uint32 words [bloom_len, ceil(N/32)] — row r is the N-genome bit slice of
 Bloom position r.  A read batch classifies as:
 

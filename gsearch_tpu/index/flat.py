@@ -1,10 +1,11 @@
 """Flat (exact) sketch index: brute-force top-k on device.
 
 Role: the correctness oracle for the ANN index and the small/medium-database
-fast path.  On TPU, exact search over tens of thousands of genome sketches
-is a dense VPU sweep that runs at HBM speed (ops/distance.py), so "exact"
-is both faster and higher-recall than CPU graph traversal at GTDB scale —
-pointer-chasing only pays off for much larger corpora (then see hnsw.py).
+fast path.  On an accelerator, search over tens of thousands of genome
+sketches is one int8 GEMM sweep plus an exact rerank (ops/mxu.py), so
+"exact" is both faster and higher-recall than graph traversal at GTDB
+scale — pointer-chasing only pays off for much larger corpora (then see
+hnsw.py).
 
 API parity targets: Hnsw::parallel_insert (src/dna/dnasketch.rs:435) ->
 `insert`; Hnsw::parallel_search (src/dna/dnarequest.rs:353) -> `search`
@@ -42,9 +43,12 @@ class FlatIndex:
     def get_nb_point(self) -> int:  # reference-parity name (dnasketch.rs:437)
         return self.nb_points
 
-    # databases at least this large route searches through the MXU
-    # sign-expansion estimator + exact rerank (on TPU backends)
+    # databases at least this large route searches through the int8 GEMM
+    # sign-expansion estimator + exact rerank (on an accelerator)
     MXU_MIN_POINTS = 4096
+    # the source signatures stay on device next to the searcher only while
+    # both fit this share of its memory
+    RESIDENT_FRACTION = 0.8125
 
     def insert(self, sigs) -> None:
         """Append a batch of signatures; ids are assigned consecutively
@@ -53,8 +57,7 @@ class FlatIndex:
         Accepts numpy OR a device array (jax.Array): device-resident
         signatures (e.g. straight from the on-device sketcher or a
         device-side corpus generator) are kept on device — no host
-        round-trip, which matters in relay/remote setups where
-        host<->device bandwidth is the bottleneck."""
+        round-trip."""
         assert sigs.shape[1] == self.sketch_size
         import jax
 
@@ -90,20 +93,24 @@ class FlatIndex:
             return np.full((q, 0), np.inf, np.float32), np.zeros((q, 0), np.int32)
         import jax
 
-        if jax.default_backend() == "tpu" and self.nb_points >= self.MXU_MIN_POINTS:
-            # throughput path: MXU estimator + exact rerank (ops/mxu.py);
-            # returned distances are bit-exact equal-count values (compact
-            # mode at HBM-limit scale: near-exact, see ops/mxu.py)
+        from ..utils import device_profile
+
+        if (device_profile().accelerated
+                and self.nb_points >= self.MXU_MIN_POINTS):
+            # throughput path: int8 GEMM estimator + exact rerank
+            # (ops/mxu.py); returned distances are bit-exact equal-count
+            # values (compact mode near the memory limit: near-exact)
             if self._mxu is None:
                 from ..ops.mxu import MxuSearcher, planned_footprint
 
                 sigs = self._sigs
                 _, rep_bytes = planned_footprint(self.nb_points, self.sketch_size)
                 if (isinstance(sigs, jax.Array) and not isinstance(sigs, np.ndarray)
-                        and sigs.nbytes + rep_bytes > 13_000_000_000):
-                    # source + searcher representations cannot coexist in
-                    # HBM (e.g. 262k x 12000 f32): stage through the host
-                    # once and free the device copy
+                        and sigs.nbytes + rep_bytes
+                        > device_profile().budget(self.RESIDENT_FRACTION)):
+                    # source + searcher representations cannot coexist on
+                    # the device: stage through the host once and free the
+                    # device copy
                     sigs = np.asarray(sigs)
                     self._sigs = sigs
                     self._device_sigs = None

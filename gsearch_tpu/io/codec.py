@@ -5,7 +5,7 @@ Capability-equivalent of the reference's 2-bit DNA `Sequence` /
 (reference call sites: src/dna/dnafiles.rs:70-72 `encode_and_add` with
 `Alphabet2b` dropping non-ACGT; src/aa/aafiles.rs:11-28 `filter_out_non_aa`).
 
-TPU-facing layout choice: we encode to one uint8 code per symbol
+Device-facing layout choice: we encode to one uint8 code per symbol
 (DNA: 0..3, AA: 0..19) rather than bit-packing on the host.  The device
 kernels consume code arrays directly and fold them into compressed k-mer
 words on-chip (gsearch_tpu/ops/kmer.py), so host bit-packing would only

@@ -1,13 +1,19 @@
 """ctypes bindings for the native FASTA parse+encode library.
 
-Loads native/libfastaparse.so when present (build with native/build.sh);
-all callers fall back to the pure-Python path transparently when absent.
+The library is built from the committed native/ sources at first use into
+native/build/libfastaparse-<key>.so, where the key hashes the source, the
+compiler flags and the host CPU: a library compiled with -march=native on
+one machine is never loaded on another (it could die there with SIGILL,
+which no exception handler sees).  All callers fall back to the
+pure-Python path transparently when no library can be built.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -17,20 +23,58 @@ _TRIED = False
 
 _ID_CAP = 512
 
+NATIVE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "native")
+CXXFLAGS = "-O3 -march=native"
+
+
+def _host_cpu() -> str:
+    """What -march=native compiles for: the CPU model and its ISA flags."""
+    keep = []
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith(("model name", "flags", "Features")):
+                    keep.append(line.strip())
+                    if len(keep) == 2:
+                        break
+    except OSError:
+        pass
+    return "\n".join(keep) or f"{platform.machine()} {platform.processor()}"
+
+
+def build_key(source: bytes, cxxflags: str = CXXFLAGS,
+              host_cpu: str | None = None) -> str:
+    """Hash of everything that decides the built library's machine code."""
+    h = hashlib.sha256(source)
+    h.update(b"\0" + cxxflags.encode() + b"\0")
+    h.update((_host_cpu() if host_cpu is None else host_cpu).encode())
+    return h.hexdigest()[:16]
+
+
+def lib_path() -> Optional[str]:
+    """Where the library for this source, flags and host lives (None
+    without the committed source)."""
+    src = os.path.join(NATIVE_DIR, "fastaparse.cpp")
+    if not os.path.exists(src):
+        return None
+    with open(src, "rb") as f:
+        key = build_key(f.read())
+    return os.path.join(NATIVE_DIR, "build", f"libfastaparse-{key}.so")
+
 
 def _find_lib() -> Optional[str]:
-    here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    native_dir = os.path.join(here, "native")
-    cand = os.path.join(native_dir, "libfastaparse.so")
-    src = os.path.join(native_dir, "fastaparse.cpp")
-    if os.path.exists(src):
-        stale = not os.path.exists(cand) or os.path.getmtime(cand) < os.path.getmtime(src)
-        if stale and os.environ.get("GSEARCH_TPU_NO_NATIVE_BUILD") != "1":
-            _try_build(native_dir)
+    cand = lib_path()
+    if cand is None:
+        return None
+    if (not os.path.exists(cand)
+            and os.environ.get("GSEARCH_TPU_NO_NATIVE_BUILD") != "1"):
+        _try_build(cand)
     return cand if os.path.exists(cand) else None
 
 
-def _try_build(native_dir: str) -> None:
+def _try_build(out: str) -> None:
     """Best-effort one-shot build of the native library (reference role:
     the Rust crates are compiled ahead of time; here we lazily compile on
     first import so the fast ingest path is active without a manual step)."""
@@ -38,8 +82,9 @@ def _try_build(native_dir: str) -> None:
 
     try:
         subprocess.run(
-            ["sh", os.path.join(native_dir, "build.sh")],
-            cwd=native_dir,
+            ["sh", os.path.join(NATIVE_DIR, "build.sh"), out],
+            cwd=NATIVE_DIR,
+            env={**os.environ, "CXXFLAGS": CXXFLAGS},
             capture_output=True,
             timeout=120,
             check=True,

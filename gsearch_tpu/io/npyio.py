@@ -14,6 +14,11 @@ import zipfile
 
 import numpy as np
 
+# numpy's public header readers (its private _read_array_header is not
+# present in every numpy release)
+_HEADER_READERS = {(1, 0): np.lib.format.read_array_header_1_0,
+                   (2, 0): np.lib.format.read_array_header_2_0}
+
 
 def npy_payload(path: str, member: str | None = None):
     """Locate the raw array payload of `path` (.npy), or of one
@@ -34,7 +39,10 @@ def npy_payload(path: str, member: str | None = None):
             nlen, elen = struct.unpack("<HH", lh[26:30])
             f.seek(info.header_offset + 30 + nlen + elen)
         version = np.lib.format.read_magic(f)
-        shape, fortran, dtype = np.lib.format._read_array_header(f, version)
+        read_header = _HEADER_READERS.get(version)
+        if read_header is None:
+            raise ValueError(f"{path}: unsupported .npy format {version}")
+        shape, fortran, dtype = read_header(f)
         if fortran:
             raise ValueError(f"{path}: fortran-order array unsupported")
         return f.tell(), shape, dtype

@@ -6,7 +6,7 @@ sites: binaux/src/bin/superaai.rs:119-159).
 
 A FracMinHash sketch keeps every k-mer whose hash falls below
 2^32 / scaled — a variable-size bottom sketch whose intersection/union
-over two genomes is an unbiased Jaccard estimator.  TPU formulation: the
+over two genomes is an unbiased Jaccard estimator.  Device formulation: the
 hash + threshold mask is one fused VPU pass over all k-mer windows; the
 surviving hashes are extracted host-side (they are ~genome/scaled values,
 a few thousand), deduplicated and sorted by numpy, and compared with

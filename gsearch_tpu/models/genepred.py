@@ -1,4 +1,4 @@
-"""Prokaryotic gene prediction — the FragGeneScan role, TPU-native.
+"""Prokaryotic gene prediction — the FragGeneScan role, on the device.
 
 Capability-equivalent of FragGeneScanRs as shipped with the reference
 (reference: binaux/src/bin/FragGeneScanRs.rs:26-272 — HMM/Viterbi gene
@@ -29,7 +29,7 @@ like the reference tool's: inserted bases are dropped from the reported
 CDS and deleted bases come back as `N` (translating to `X`), so the
 downstream protein stays in frame across the error.
 
-TPU formulation: emissions and bonuses for all positions are precomputed
+Device formulation: emissions and bonuses for all positions are precomputed
 as vectorized table lookups; the Viterbi recursion is a `lax.scan` over
 positions carrying a [batch, 7] DP vector and emitting int8 backpointers;
 backtrace is a second reverse `lax.scan`.  Everything is batched over
@@ -529,8 +529,7 @@ class GenePredParams:
     start_codon_bonus: float = 3.0        # extra for ATG/GTG/TTG at gene start
     #: extra for a proper stop at gene end; None resolves by mode in
     #: __post_init__.  Whole-genome calling: 9.0, tuned on the realistic
-    #: planted-genome benchmark (scripts/bench_genepred.py, GENEPRED_BENCH:
-    #: 6.0 left sensitivity at 0.53; 9.0 reaches sens 1.0 / prec 0.97+
+    #: planted-genome benchmark (scripts/bench_genepred.py: 6.0 left sensitivity at 0.53; 9.0 reaches sens 1.0 / prec 0.97+
     #: across the start-bonus / p_gene_start grid).  Read mode with indel
     #: states: 6.0 — a larger stop bonus makes "stop at the frameshift +
     #: restart" outscore the insert-state detour, truncating exactly the
@@ -706,14 +705,17 @@ def _precompute_scores(codes: jnp.ndarray, codon_lu, dicodon_lu,
     # flanking-context scores for ALL positions and all four boundary
     # kinds in one conv: score[b, t, i] = sum_j ctx[t, j, tri[i-30+j]]
     # over valid trinucleotides — a 61-tap, 64-feature 1-D correlation of
-    # the one-hot trinucleotide stream, which XLA lowers onto the MXU
+    # the one-hot trinucleotide stream, which XLA lowers onto the matrix
+    # units.  HIGHEST: a GPU would otherwise run it in TF32 (~3 digits),
+    # while the scores are compared against CPU-computed f32 oracles
     oh = jax.nn.one_hot(cod_start, 64, dtype=jnp.float32)
     oh = oh * (~fwd_bad).astype(jnp.float32)[..., None]
     sc = jax.lax.conv_general_dilated(
         jnp.moveaxis(oh, 2, 1),                    # [B, 64, L]
         jnp.moveaxis(jnp.asarray(ctx), 2, 1),      # [4, 64, 61]
         (1,), [(30, 30)],
-        dimension_numbers=("NCW", "OIW", "NCW"))   # [B, 4, L]
+        dimension_numbers=("NCW", "OIW", "NCW"),
+        precision=jax.lax.Precision.HIGHEST)      # [B, 4, L]
     if ctx_aff is not None:
         # per-table affine calibration of the window sum into bounded
         # log-posterior-odds (trained from true-vs-random score
@@ -1134,7 +1136,7 @@ def self_trained_params(seq: bytes, base: "GenePredParams | None" = None,
 
 
 #: whole-genome decoding window: contigs longer than _WINDOW split into
-#: batched overlapping windows (TPU gets batch parallelism instead of one
+#: batched overlapping windows (the device gets batch parallelism instead of one
 #: multi-hundred-thousand-step serial scan; the reference tool gets its
 #: parallelism the same way — across reads/records,
 #: FragGeneScanRs.rs:225-243 chunked(100) rayon)

@@ -6,7 +6,7 @@ profiles", tabular output), which the universal-gene workflow uses to
 extract the 120/122 GTDB marker genes (data/HMM_bacteria, data/HMM_archaea;
 data/README.md:1) that `tohnsw --aa` then indexes (README.md:656-660).
 
-TPU formulation
+Device formulation
 ---------------
 Plan7 local Viterbi is a 2-D DP (sequence position x profile position).
 The sequence axis is a `lax.scan`; everything inside one step is

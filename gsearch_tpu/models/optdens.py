@@ -5,7 +5,7 @@ RevOptDensHashSketch; reference: src/dna/dnasketch.rs:600-642,
 README.md:676-680; algorithm: Shrivastava, "Optimal Densification for Fast
 and Accurate Minwise Hashing", arXiv 1703.04664).
 
-TPU formulation: each k-mer throws exactly one dart —
+Device formulation: each k-mer throws exactly one dart —
 slot = H1(kmer) mod S, key = H2(kmer) — so OPH is a single `bucket_min`
 race.  Densification of empty slots runs on the final [S] vector as R
 rounds of vectorized gather-probes: empty slot i probes mix(i, r) mod S

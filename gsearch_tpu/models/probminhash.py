@@ -8,7 +8,7 @@ the element winning an exponential race with rates proportional to the
 element's k-mer multiplicity; two genomes agree on slot s with probability
 J_P, the probability Jaccard of their weighted k-mer spectra.
 
-TPU formulation (the CPU algorithm's hash-table of counts + per-element
+Device formulation (the CPU algorithm's hash-table of counts + per-element
 heap does not map to a vector unit):
 
  1. One batched sort of the k-mer stream groups equal k-mers; each run's

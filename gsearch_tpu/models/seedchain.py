@@ -7,7 +7,7 @@ m=1000).  skani estimates ANI from the identity rate of *chained* spaced
 k-mer seeds, robust to rearrangement and incomplete assemblies, and
 reports the aligned fraction of query and reference.
 
-TPU-native formulation:
+Device formulation:
   * seeds: canonical k-mers thinned to ~1/c by a hash threshold (the same
     fused window/hash kernel as every sketcher; positions kept) — the
     FracMinHash-style sketching skani calls fastx_to_sketches,

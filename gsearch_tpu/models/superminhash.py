@@ -8,7 +8,7 @@ Estimation", arXiv 1706.05698).
 SuperMinHash assigns element x, for arrival j = 0, 1, ..., the value
 v_j = j + u_j(x) (u_j uniform) at a slot drawn without replacement, and
 keeps the per-slot minimum.  The sequential algorithm early-stops the
-arrival loop; on TPU we truncate it at a static C arrivals per element and
+arrival loop; on the device we truncate it at a static C arrivals per element and
 fold everything into one `bucket_min` race:
 
   key  = (j << 24) | 24-bit u_j(x)          (monotone encoding of j + u_j)

@@ -5,14 +5,11 @@ the fraction of differing slots, which estimates 1 - Jaccard for every
 MinHash-family signature (reference: src/dna/dnasketch.rs:103-104,139;
 src/bin/bindash.rs:93-99).
 
-TPU formulation: one fused equal-count kernel over [Q, S] x [N, S] tiles.
-The elementwise compare + reduce runs on the VPU at full HBM bandwidth;
-each (query-tile, db-tile) pair reuses both operands from VMEM, so arith
-intensity scales with the tile sizes (Pallas path).  A pure-XLA path with
-identical semantics backs it on CPU and serves as the correctness oracle.
-
+`hamming_frac_xla` is the exact all-pairs sweep and the correctness oracle;
 `brute_force_knn` is both the small-database fast path and the recall
-oracle for the ANN index (SURVEY.md §7 step 4).
+oracle for the ANN index (SURVEY.md §7 step 4).  `gather_eqcount` scores
+each query against its own candidate rows only: the exact rerank behind
+the int8 candidate GEMM (ops/mxu.py) and the graph index (index/hnsw.py).
 """
 
 from __future__ import annotations
@@ -21,13 +18,11 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
+import numpy as np
 
 from ..utils import get_logger
 
 log = get_logger(__name__)
-
-_LANE = 128
 
 
 def _pad_axis(x: jnp.ndarray, axis: int, mult: int, value) -> jnp.ndarray:
@@ -40,283 +35,81 @@ def _pad_axis(x: jnp.ndarray, axis: int, mult: int, value) -> jnp.ndarray:
     return jnp.pad(x, pad, constant_values=value)
 
 
+def eq_to_dist(eq: jnp.ndarray, s: int) -> jnp.ndarray:
+    """Equal-slot counts -> Hamming fraction (s - eq) / s, f32.
+
+    Written as a multiply by the f32 reciprocal of s: XLA rewrites a
+    division by a constant into exactly that in some fusions and not in
+    others, so only this form gives the same bits in every compiled
+    program (the index paths and the oracle agree bit for bit), and
+    identical sketches sit at distance exactly 0."""
+    return (jnp.float32(s) - eq.astype(jnp.float32)) * np.float32(1.0 / s)
+
+
 def hamming_frac_xla(q: jnp.ndarray, db: jnp.ndarray, chunk: int = 2048) -> jnp.ndarray:
     """Reference implementation: [Q, S] x [N, S] -> [Q, N] float32 distances."""
     s = q.shape[-1]
     nq = q.shape[0]
     n = db.shape[0]
-
-    def one_chunk(i):
-        dbc = jax.lax.dynamic_slice_in_dim(db, i * chunk, chunk, axis=0)
-        eq = (q[:, None, :] == dbc[None, :, :]).sum(axis=-1)
-        return eq
-
     if n <= chunk:
         eq = (q[:, None, :] == db[None, :, :]).sum(axis=-1)
     else:
+        # padding rows compare arbitrarily; they are sliced off below
         db_p = _pad_axis(db, 0, chunk, 0)
-        q_pad_differs = db_p  # padding rows compare arbitrarily; sliced off below
-        del q_pad_differs
         nch = db_p.shape[0] // chunk
         eq = jax.lax.map(
             lambda i: (q[:, None, :] == jax.lax.dynamic_slice_in_dim(db_p, i * chunk, chunk, 0)[None, :, :]).sum(-1),
             jnp.arange(nch),
         )
         eq = jnp.moveaxis(eq, 0, 1).reshape(nq, nch * chunk)[:, :n]
-    return (1.0 - eq.astype(jnp.float32) / jnp.float32(s)).astype(jnp.float32)
+    return eq_to_dist(eq, s)
 
 
-def _eqcount_kernel(q_ref, d_ref, o_ref, *, inner: int, s_true: int):
-    """One (q-tile, db-tile, s-block) grid cell: accumulate equal counts.
-
-    The s-block axis is the innermost grid dimension, so o_ref stays
-    resident in VMEM across the whole S sweep (revisiting accumulation)."""
-    tq = q_ref.shape[0]
-    tn = d_ref.shape[0]
-    sb = q_ref.shape[1]
-    k = pl.program_id(2)
-    nk = pl.num_programs(2)
-
-    @pl.when(k == 0)
-    def _():
-        o_ref[:, :] = jnp.zeros((tq, tn), jnp.float32)
-
-    def body(c, acc):
-        qb = q_ref[:, pl.ds(c * inner, inner)]
-        db = d_ref[:, pl.ds(c * inner, inner)]
-        eq = (qb[:, None, :] == db[None, :, :]).astype(jnp.float32)
-        return acc + jnp.sum(eq, axis=-1)
-
-    # fori_loop (not Python unroll) so the [tq, tn, inner] compare buffer is
-    # allocated once, not once per chunk (VMEM stack is only ~16MB)
-    acc = jax.lax.fori_loop(0, sb // inner, body, jnp.zeros((tq, tn), jnp.float32))
-    o_ref[:, :] += acc
-
-    @pl.when(k == nk - 1)
-    def _():
-        o_ref[:, :] = 1.0 - o_ref[:, :] / jnp.float32(s_true)
+def _eq_fields(x: jnp.ndarray, parts: int) -> jnp.ndarray:
+    """Equal sub-fields of x = a ^ b as int32: the whole u32 (parts=1),
+    16-bit halves (2), 8-bit quarters (4) or 4-bit nibbles (8)."""
+    if parts == 1:
+        return (x == 0).astype(jnp.int32)
+    bits = 32 // parts
+    mask = jnp.uint32((1 << bits) - 1)
+    return sum((((x >> jnp.uint32(bits * b)) & mask) == 0).astype(jnp.int32)
+               for b in range(parts))
 
 
-@functools.partial(jax.jit, static_argnames=("tq", "tn", "sb", "inner", "interpret"))
-def hamming_frac_pallas(
-    q: jnp.ndarray, db: jnp.ndarray, tq: int = 16, tn: int = 256, sb: int = 2048,
-    inner: int = 128, interpret: bool = False,
-) -> jnp.ndarray:
-    """Fused Pallas equal-count distance: [Q, S] x [N, S] -> [Q, N] f32.
+def gather_eqcount(db: jnp.ndarray, q: jnp.ndarray, ids: jnp.ndarray, *,
+                   s_true: int, parts: int = 1) -> jnp.ndarray:
+    """Hamming fraction of each query against its gathered candidate rows.
 
-    Signature slots are compared bit-exactly; q/db are padded along S with
-    distinct sentinels (0 vs 1) so padding never counts as equal, and the
-    true S is used as the normalizer.  Grid = (Q, N, S) tiles with the
-    S-axis innermost: the [tq, tn] accumulator lives in VMEM for the whole
-    sweep and input blocks stay small enough to double-buffer.
-    """
-    s_true = q.shape[-1]
-    assert db.shape[-1] == s_true
-    if q.dtype != db.dtype:
-        raise ValueError(f"dtype mismatch {q.dtype} vs {db.dtype}")
-    # compare as uint32 bit patterns so one kernel serves f32/u32/u16 sigs
-    if q.dtype == jnp.float32:
-        q = q.view(jnp.uint32)
-        db = db.view(jnp.uint32)
-    elif q.dtype == jnp.uint16:
-        q = q.astype(jnp.uint32)
-        db = db.astype(jnp.uint32)
+    db [N, L] u32, or the same rows pre-shaped [N, 8, L/8] (a free
+    row-major reshape); q [Qc, L] u32; ids [Qc, C] int32 row ids, clamped
+    into [0, N) -> [Qc, C] f32 distances eq_to_dist(eq, s_true), where eq counts
+    the equal fields of q[i] and db[ids[i, j]] and each u32 lane holds
+    `parts` packed fields (1, 2, 4 or 8).  Column pads of db and q must
+    differ so that they never count.  Distances are bit-equal to the
+    oracle's (hamming_frac_xla).
 
-    sb = min(sb, _round_up_int(s_true, inner))
-    q = _pad_axis(q, -1, sb, 0)
-    db = _pad_axis(db, -1, sb, 1)
-    nq, n = q.shape[0], db.shape[0]
-    tq = min(tq, _round_up_int(nq, 8))
-    tn = min(tn, _round_up_int(n, 128))
-    q = _pad_axis(q, 0, tq, 0)
-    db = _pad_axis(db, 0, tn, 1)
-    s_pad = q.shape[-1]
-
-    grid = (q.shape[0] // tq, db.shape[0] // tn, s_pad // sb)
-    out = pl.pallas_call(
-        functools.partial(_eqcount_kernel, inner=inner, s_true=s_true),
-        out_shape=jax.ShapeDtypeStruct((q.shape[0], db.shape[0]), jnp.float32),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((tq, sb), lambda i, j, k: (i, k)),
-            pl.BlockSpec((tn, sb), lambda i, j, k: (j, k)),
-        ],
-        out_specs=pl.BlockSpec((tq, tn), lambda i, j, k: (i, j)),
-        interpret=interpret,
-    )(q, db)
-    return out[:nq, :n]
+    One plain XLA gather + compare + reduce: on the GPU, XLA fuses the
+    gather into the reduction and reads each candidate row once, as fast
+    as a hand-written fused Triton kernel measured at these widths."""
+    if parts not in (1, 2, 4, 8):
+        raise ValueError(f"parts must be 1, 2, 4 or 8 (got {parts})")
+    db2 = db.reshape(db.shape[0], -1)
+    if q.shape[1] != db2.shape[1]:
+        raise ValueError(f"query lanes {q.shape[1]} != db lanes {db2.shape[1]}")
+    ids = jnp.clip(ids.astype(jnp.int32), 0, db2.shape[0] - 1)
+    rows = jnp.take(db2, ids, axis=0)  # [Qc, C, L]
+    eq = _eq_fields(rows ^ q[:, None, :], parts).sum(axis=-1)
+    return eq_to_dist(eq, s_true)
 
 
-def _round_up_int(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
-
-
-def _gather_eq_kernel(ids_ref, q_ref, db_ref, o_ref, rowbuf, sem,
-                      *, s_true: int, r: int, qblk: int,
-                      parts: int = 1):
-    """One grid step scores `qblk` queries against their R candidates.
-
-    db_ref [N, 8, Sp/8] lives in HBM (memory_space ANY); each candidate
-    row is DMA'd into the [R, 8, Sp/8] VMEM scratch by its id from the
-    per-step [qblk, R] SMEM block (a whole-array scalar prefetch would
-    blow the 1 MB SMEM for traversal-sized id lists; slicing only the
-    leading, untiled dimension keeps Mosaic's (8, 128) tile alignment),
-    then one vectorized compare produces the query's whole distance row."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    def issue(qi, buf):
-        """Start ALL r row copies for query qi into rowbuf[buf] without
-        waiting: serialized start->wait pairs are DMA-latency-bound
-        (~0.5 us x r x qblk dominated the rerank); issuing the batch up
-        front lets the copies stream at HBM bandwidth."""
-        def start(j, _):
-            idx = ids_ref[qi, j]
-            pltpu.make_async_copy(
-                db_ref.at[pl.ds(idx, 1)], rowbuf.at[buf, pl.ds(j, 1)],
-                sem.at[buf],
-            ).start()
-            return 0
-
-        jax.lax.fori_loop(0, r, start, 0)
-
-    def drain(buf):
-        """Wait for the r outstanding row copies of rowbuf[buf]."""
-        def wait(j, _):
-            pltpu.make_async_copy(
-                db_ref.at[pl.ds(0, 1)], rowbuf.at[buf, pl.ds(0, 1)],
-                sem.at[buf],
-            ).wait()
-            return 0
-
-        jax.lax.fori_loop(0, r, wait, 0)
-
-    nbuf = rowbuf.shape[0]
-    issue(0, 0)
-    for qi in range(qblk):  # static unroll: o_ref row stores stay static
-        drain(qi % nbuf)
-        if nbuf == 2 and qi + 1 < qblk:
-            # double-buffer: next query's DMAs overlap this compute
-            issue(qi + 1, (qi + 1) % 2)
-        # keep every intermediate rank-2 (Mosaic layouts want >= 2 dims)
-        if parts == 2:
-            # each u32 lane packs TWO 16-bit hashed slots (compact rerank,
-            # ops/mxu.py): count equal halves
-            x = rowbuf[qi % nbuf] ^ q_ref[qi][None]
-            eq2 = (((x & jnp.uint32(0xFFFF)) == 0).astype(jnp.float32)
-                   + ((x >> jnp.uint32(16)) == 0).astype(jnp.float32)).sum(axis=2)
-        elif parts == 4:
-            # FOUR 8-bit hashed slots per u32 lane (full-width tier for
-            # databases whose 16-bit form would not fit HBM): count equal
-            # bytes
-            x = rowbuf[qi % nbuf] ^ q_ref[qi][None]
-            eq2 = sum(
-                (((x >> jnp.uint32(8 * b)) & jnp.uint32(0xFF)) == 0)
-                .astype(jnp.float32)
-                for b in range(4)
-            ).sum(axis=2)
-        elif parts == 8:
-            # EIGHT 4-bit hashed slots per u32 lane (full-width tier at
-            # 1M x 12000 — ops/mxu.py:_pack_hash4): count equal nibbles
-            x = rowbuf[qi % nbuf] ^ q_ref[qi][None]
-            eq2 = sum(
-                (((x >> jnp.uint32(4 * b)) & jnp.uint32(0xF)) == 0)
-                .astype(jnp.float32)
-                for b in range(8)
-            ).sum(axis=2)
-        else:
-            eq2 = (rowbuf[qi % nbuf] == q_ref[qi][None]).astype(jnp.float32).sum(axis=2)
-        eqc = eq2.sum(axis=1, keepdims=True)  # [r, 1]
-        d_col = (jnp.float32(s_true) - eqc) / jnp.float32(s_true)
-        o_ref[pl.ds(qi, 1), :] = d_col.T  # [1, r] row store (static qi)
-        if nbuf == 1 and qi + 1 < qblk:
-            # rowbuf too big to double (VMEM): refill after the compute
-            issue(qi + 1, 0)
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("s_true", "interpret", "halves", "parts"))
-def gather_hamming_pallas(
-    db: jnp.ndarray, q: jnp.ndarray, ids: jnp.ndarray, *, s_true: int,
-    interpret: bool = False, halves: bool = False, parts: int = 0,
-) -> jnp.ndarray:
-    """Row-gather + equal-count distance without an XLA gather.
-
-    db [N, Sp] u32 or PRE-SHAPED [N, 8, Sp/8] (Sp a multiple of 1024;
-    column pads must differ between db and q so they never count equal),
-    q [Qc, Sp] u32 (Qc a multiple of 8), ids [Qc, R] i32 ->
-    [Qc, R] f32 distances d(q_i, db[ids[i, j]]).
-
-    XLA's gather on a [262k, 12000] matrix materializes a layout-converted
-    COPY of the whole operand (11.75 GB — instant OOM next to the resident
-    matrix).  Here the matrix stays in HBM untouched: candidate ids are
-    scalar-prefetched and each row is manually DMA'd into a VMEM scratch —
-    total traffic is Qc*R rows, not N.  Rows are viewed as [8, Sp/8] tiles
-    so the single-row DMA slices only an untiled leading dimension.
-    Callers holding a big resident matrix should store it [N, 8, Sp/8]
-    up front (a free host reshape): an in-graph reshape of the 2-D form
-    lowers to a whole-matrix layout copy — 24 GB of HLO temps at 262k."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    # parts: packed hashed slots per u32 lane (1 = raw u32 slots, 2 = u16
-    # halves, 4 = u8 quarters); `halves` is the legacy spelling of parts=2
-    parts = parts or (2 if halves else 1)
-    qc, r = ids.shape
-    if db.ndim == 3:
-        assert db.shape[1] == 8
-        sp = db.shape[1] * db.shape[2]
-        db3 = db
-    else:
-        sp = db.shape[1]
-        db3 = db.reshape(db.shape[0], 8, sp // 8)
-    assert sp % (8 * _LANE) == 0, f"pad signature columns to {8 * _LANE} (got {sp})"
-    sp8 = sp // 8
-    q3 = q.reshape(qc, 8, sp8)
-    qblk = 8
-    nbuf = 2 if 2 * r * sp * db.dtype.itemsize <= 8 * 1024 * 1024 else 1
-    assert qc % qblk == 0, f"query count must be a multiple of {qblk}"
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=0,
-        grid=(qc // qblk,),
-        in_specs=[
-            # per-step id block in SMEM: scalar-prefetching the WHOLE id
-            # array overflows the 1 MB SMEM once R is traversal-sized
-            # (e.g. [1024, 512] i32 = 2 MB in the insert path)
-            pl.BlockSpec((qblk, r), lambda i: (i, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((qblk, 8, sp8), lambda i: (i, 0, 0)),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        out_specs=pl.BlockSpec((qblk, r), lambda i: (i, 0)),
-        scratch_shapes=[
-            # double-buffer the candidate rows when VMEM allows (~16 MB/core
-            # shared with the query block); huge r falls back to one buffer
-            pltpu.VMEM((nbuf, r, 8, sp8), db.dtype),
-            pltpu.SemaphoreType.DMA((nbuf,)),  # one per buffer slot
-        ],
-    )
-    return pl.pallas_call(
-        functools.partial(_gather_eq_kernel, s_true=s_true, r=r, qblk=qblk,
-                          parts=parts),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((qc, r), jnp.float32),
-        interpret=interpret,
-    )(ids, q3, db3)
-
-
-def hamming_frac(q: jnp.ndarray, db: jnp.ndarray, impl: str | None = None) -> jnp.ndarray:
-    """Dispatch: Pallas on TPU, XLA elsewhere (and as oracle)."""
-    if impl is None:
-        impl = "pallas" if jax.default_backend() == "tpu" else "xla"
-    if impl == "pallas":
-        return hamming_frac_pallas(q, db)
+def hamming_frac(q: jnp.ndarray, db: jnp.ndarray) -> jnp.ndarray:
+    """[Q, S] x [N, S] -> [Q, N] fraction of differing slots (exact)."""
     return hamming_frac_xla(q, db)
 
 
-def brute_force_knn(
-    q: jnp.ndarray, db: jnp.ndarray, knbn: int, impl: str | None = None
-):
+def brute_force_knn(q: jnp.ndarray, db: jnp.ndarray, knbn: int):
     """Exact top-k by sketch distance. Returns (distances [Q,k], ids [Q,k])."""
-    d = hamming_frac(q, db, impl=impl)
+    d = hamming_frac(q, db)
     neg, ids = jax.lax.top_k(-d, knbn)
     return -neg, ids
 
@@ -328,20 +121,18 @@ def _next_bucket(n: int, floor: int) -> int:
     return b
 
 
-def bucketed_knn(q: np.ndarray, db: np.ndarray, knbn: int, impl: str | None = None):
+def bucketed_knn(q: np.ndarray, db: np.ndarray, knbn: int):
     """brute_force_knn with Q and N padded to power-of-two buckets so
-    growing databases / varying batch sizes reuse compiled programs
-    (compiles are remote-serviced and expensive in this environment).
+    growing databases / varying batch sizes reuse compiled programs.
     Pad rows get +inf distance, so results are exact."""
-    import numpy as _np
 
     def _pad_rows(x, rows):
         # device arrays pad with jnp (no host download); numpy stays host-side
-        if isinstance(x, jax.Array) and not isinstance(x, _np.ndarray):
+        if isinstance(x, jax.Array) and not isinstance(x, np.ndarray):
             return jnp.concatenate(
                 [x, jnp.zeros((rows,) + x.shape[1:], x.dtype)], axis=0)
-        return _np.concatenate(
-            [x, _np.zeros((rows,) + x.shape[1:], x.dtype)], axis=0)
+        return np.concatenate(
+            [x, np.zeros((rows,) + x.shape[1:], x.dtype)], axis=0)
 
     nq, n = q.shape[0], db.shape[0]
     qb = _next_bucket(nq, 8)
@@ -355,17 +146,16 @@ def bucketed_knn(q: np.ndarray, db: np.ndarray, knbn: int, impl: str | None = No
     # sort last, so slicing restores the exact semantics
     k_static = min(knbn, nb)
     d, ids = _bucketed_knn_jit(
-        jnp.asarray(q), jnp.asarray(db), jnp.int32(n), knbn=k_static, impl=impl
-    )
+        jnp.asarray(q), jnp.asarray(db), jnp.int32(n), knbn=k_static)
     k_real = min(knbn, n)
-    return _np.asarray(d)[:nq, :k_real], _np.asarray(ids)[:nq, :k_real]
+    return np.asarray(d)[:nq, :k_real], np.asarray(ids)[:nq, :k_real]
 
 
-@functools.partial(jax.jit, static_argnames=("knbn", "impl"))
-def _bucketed_knn_jit(q, db, n, *, knbn: int, impl):
+@functools.partial(jax.jit, static_argnames=("knbn",))
+def _bucketed_knn_jit(q, db, n, *, knbn: int):
     # n is a traced scalar: one compiled program serves every fill level of
     # the bucket; pad rows are masked to +inf
-    d = hamming_frac(q, db, impl=impl)
+    d = hamming_frac(q, db)
     col = jnp.arange(db.shape[0], dtype=jnp.int32)
     d = jnp.where(col[None, :] < n, d, jnp.inf)
     neg, ids = jax.lax.top_k(-d, knbn)

@@ -1,6 +1,6 @@
 """32-bit hash mixers and uniform/exponential draws, as JAX device ops.
 
-Design note: TPUs have no native 64-bit integer datapath, so the framework
+Design note: accelerators have no fast 64-bit integer datapath, so the framework
 never materializes u64 on device.  Wide k-mers (DNA k in 17..32, AA k in
 7..12) are carried as (hi, lo) uint32 lane pairs and hashed by cross-mixing
 the two lanes.  This replaces the reference's 64-bit FxHash/murmur-style

@@ -5,14 +5,14 @@ Capability-equivalent of kmerutils' KmerSeqIterator + compressed k-mer types
 AA; reference call sites: src/dna/dnasketch.rs:493-644 k-mer-width dispatch,
 src/bin/hypermash.rs:147-166 canonical min(kmer, revcomp)).
 
-TPU-first formulation: instead of a streaming per-position iterator, every
+Device formulation: instead of a streaming per-position iterator, every
 window start position is computed at once.  A sequence arrives as a uint8
 code array `codes[..., L]` (0..alphabet-1, >= 4/20 invalid).  The k-mer at
 position i is the base-(2^bits) fold of codes[i:i+k]; we build it with k
 static shifted slices, which XLA fuses into one elementwise pass — all VPU,
 no gathers, no sequential dependence.
 
-Wide k-mers (> 32 bits) live in (hi, lo) uint32 lane pairs: TPUs have no
+Wide k-mers (> 32 bits) live in (hi, lo) uint32 lane pairs: accelerators have no fast
 64-bit integer datapath (see ops/hash.py).
 
 Outputs are aligned to window start positions: position i of the output is

@@ -1,8 +1,8 @@
-"""MXU-based sketch search: slot equality as an int8 matmul.
+"""Sketch search as an int8 matmul: slot equality estimated by sign dots.
 
-The exact equal-count distance (ops/distance.py) is VPU-bound: Q*N*S
-compares.  The MXU cannot compare, but it can do something statistically
-equivalent: expand every slot value into m sign bits of a *hash* of the
+The exact equal-count distance (ops/distance.py) is a Q*N*S compare
+sweep.  A matrix unit cannot compare, but it can do something
+statistically equivalent: expand every slot value into m sign bits of a *hash* of the
 value.  For two genomes' slots:
 
     equal slot   -> all m sign bits agree        -> contributes +m
@@ -10,8 +10,8 @@ value.  For two genomes' slots:
 
 so  E[ q_exp . d_exp ] = m * S * J  with per-pair noise sd ~ sqrt(mS)/2 —
 an unbiased Jaccard estimator whose precision grows with m, computed as a
-[Q, mS] x [mS, N] int8 matmul at MXU rate (hundreds of TOPS) instead of a
-VPU compare sweep.  Hashing the value first makes the coin-flip property
+[Q, mS] x [mS, N] int8 matmul on the tensor cores instead of a compare
+sweep.  Hashing the value first makes the coin-flip property
 hold for ANY signature dtype (f32 hash values, u32 fingerprints, u16
 SetSketch registers whose neighboring levels differ in one low bit).
 
@@ -25,7 +25,7 @@ path (reference: src/dna/dnarequest.rs:353) — the graph index (hnsw.py)
 remains for corpora too large for a full sweep.
 
 Compact mode (auto-selected for databases whose standard two
-representations would not fit HBM, e.g. 262k x 12000 on a 16 GB chip):
+representations would exceed half of one device's memory):
 m=2 sign expansion for candidate scoring plus a rerank matrix of 16-bit
 slot HASHES packed in pairs into u32 lanes — 48 KB/row instead of 97 KB
 at S=12000.  Rerank counts equal 16-bit halves: two unequal slots'
@@ -44,14 +44,28 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ..utils import device_profile
+from .distance import gather_eqcount
 from .hash import mix32
 
 _EXPAND_SEED = 0x51614B17
 _RERANK_SEED = 0x243F6A88  # independent of the expansion hash
 
-# budget for the pallas rerank's scalar-prefetched [Q, C] int32 candidate
-# operand; SMEM is 1 MB/core, leave headroom for other scalar operands
-_MAX_SMEM_CAND_BYTES = 768 * 1024
+# bound on one rerank dispatch's working set, the [Qc, C, L] u32 candidate
+# rows of gather_eqcount, as a fraction of one device's memory (XLA may
+# materialize them); query chunks are sized to fit it
+RERANK_WORKSET_FRACTION = 1 / 32
+
+
+def rerank_chunk(nq: int, nb_cand: int, lanes: int) -> int:
+    """Largest power-of-two query chunk (>= 8) whose gathered candidate
+    rows, nq x nb_cand x lanes u32, fit RERANK_WORKSET_FRACTION of one
+    device's memory; nq itself when the whole batch fits."""
+    budget = device_profile().budget(RERANK_WORKSET_FRACTION)
+    chunk = 8
+    while chunk < nq and 2 * chunk * nb_cand * lanes * 4 <= budget:
+        chunk <<= 1
+    return min(chunk, nq)
 
 
 def _as_u32(sigs: jnp.ndarray) -> jnp.ndarray:
@@ -83,9 +97,8 @@ def expand_signs_chunked(sigs: np.ndarray, m: int = 4, chunk: int = 8192) -> jax
 @functools.partial(jax.jit, donate_argnums=(0, 1), static_argnames=("m", "spad"))
 def _init_write(db_exp, full3, rows_u32, start, *, m, spad):
     """Expand one row chunk and write it into the preallocated device
-    buffers IN PLACE (donated): concatenating per-chunk results doubles
-    peak HBM (a 65k x 12000 database is ~7.2 GB across the two
-    representations — the concat copies OOM next to resident signatures)."""
+    buffers IN PLACE (donated): concatenating per-chunk results would
+    double the peak device memory of the two representations."""
     exp = expand_signs(rows_u32, m=m)
     f3 = _pad_reshape_full(rows_u32, spad=spad)
     db_exp = jax.lax.dynamic_update_slice(db_exp, exp, (start, jnp.int32(0)))
@@ -126,14 +139,13 @@ def _pack_hash8(rows_u32: jnp.ndarray, *, spad: int, pad_val: int) -> jnp.ndarra
     """[R, S] u32 -> [R, 8, spad/32] u32: 8-bit slot hashes packed in fours.
 
     Quarter-width sibling of _pack_hash16 for databases whose 16-bit
-    full-width form would not fit HBM (524k x 12000 needs 12.9 GB at 16
-    bits but 6.4 GB at 8).  Unequal slots' hashes collide with probability
-    2^-8: at S=12000 and neighbor distances ~0.1 the expected inflation is
-    ~5 equal slots with sd ~2 — far below the 16-bit-tier-over-a-SAMPLE
-    noise it replaces (sd ~20 slots when only 8192/12000 slots fit), which
-    is what capped 524k recall at 0.982 (DIAG524K.json: pool 1.0, exact
-    rerank 0.9988, packed-sample 0.982).  spad must be a multiple of 4096
-    so the packed lane count spad/4 keeps the kernel's 1024-lane rule."""
+    full-width form would not fit the device (a 524k x 12000 matrix is
+    12.9 GB at 16 bits, 6.4 GB at 8).  Unequal slots' hashes collide with
+    probability 2^-8: at S=12000 and neighbor distances ~0.1 the expected
+    inflation is ~5 equal slots with sd ~2 — far below the ~20-slot
+    sampling noise of a 16-bit tier over a slot SAMPLE (8192/12000 slots)
+    of the same bytes.  spad must be a multiple of 4096 so the packed lane
+    count spad/4 keeps the 1024-lane rule."""
     r, s = rows_u32.shape
     h = mix32(rows_u32, _RERANK_SEED) >> jnp.uint32(24)  # [R, S] in [0, 2^8)
     if spad > s:
@@ -151,17 +163,16 @@ def _pack_hash4(rows_u32: jnp.ndarray, *, spad: int, pad_val: int) -> jnp.ndarra
     to a lane.
 
     Eighth-width sibling of _pack_hash16 for databases where even the
-    8-bit full-width form exceeds HBM (1M x 12000 needs 12.9 GB at 8
-    bits but 8.6 GB at 4, padded to the 1024-lane rule).  Unequal slots'
-    hashes collide with probability 2^-4, so the measured equal count is
-    E[meq] = eq + (S - eq)/16 — AFFINE in the true count, so expected
-    ranking is unchanged; the noise is sd = sqrt((S-eq) 15/256) ~ 19
-    slots at S=12000, eq~S/2 — half the ~37-slot sampling noise of a
-    16-bit tier over the 4096/12000 slot SAMPLE that fits the same bytes
-    (the sampled-tier regression at 524k measured 0.982, DIAG524K.json).
-    Callers polish the final top-k with an exact host re-score.  spad
-    must be a multiple of 8192 so the packed lane count spad/8 keeps the
-    kernel's 1024-lane rule."""
+    8-bit full-width form does not fit the device (a 1M x 12000 matrix is
+    12.9 GB at 8 bits, 8.6 GB at 4, padded to the 1024-lane rule).
+    Unequal slots' hashes collide with probability 2^-4, so the measured
+    equal count is E[meq] = eq + (S - eq)/16 — AFFINE in the true count,
+    so expected ranking is unchanged; the noise is sd = sqrt((S-eq)
+    15/256) ~ 19 slots at S=12000, eq~S/2 — half the ~37-slot sampling
+    noise of a 16-bit tier over the 4096/12000 slot SAMPLE that fits the
+    same bytes.  Callers polish the final top-k with an exact host
+    re-score.  spad must be a multiple of 8192 so the packed lane count
+    spad/8 keeps the 1024-lane rule."""
     r, s = rows_u32.shape
     h = mix32(rows_u32, _RERANK_SEED) >> jnp.uint32(28)  # [R, S] in [0, 16)
     if spad > s:
@@ -178,8 +189,8 @@ def _init_write_exp(db_exp, rows_u32, start, *, m):
     """Estimator-only sibling of _init_write: expand one row chunk into
     the donated sign-expansion buffer, building NO rerank matrix (the
     caller reranks with its own device tier — e.g. the hnsw packed4
-    tier at 1M x 12000, where this searcher's 16-bit prefix rerank
-    matrix would cost 4.3 GB of the HBM that tier needs)."""
+    tier, where this searcher's 16-bit prefix rerank matrix would take
+    device memory that tier needs)."""
     exp = expand_signs(rows_u32, m=m)
     return jax.lax.dynamic_update_slice(db_exp, exp, (start, jnp.int32(0)))
 
@@ -196,38 +207,24 @@ def _init_write_compact(db_exp, packed3, rows_u32, start, *, m, spad):
     return db_exp, packed3
 
 
-@functools.partial(jax.jit, static_argnames=("nb_cand", "approx"))
-def _mxu_candidates(q_exp: jnp.ndarray, db_exp: jnp.ndarray, nb_cand: int,
-                    approx: bool = False):
-    scores = jax.lax.dot_general(
-        q_exp,
-        db_exp,
-        dimension_numbers=(((1,), (1,)), ((), ())),
+def _sign_scores(q_exp: jnp.ndarray, db_exp: jnp.ndarray) -> jnp.ndarray:
+    """[Q, mS] x [N, mS] int8 -> [Q, N] f32 sign-dot scores: one int8 GEMM
+    with int32 accumulation.  Scores are bounded by m*S < 2^24, so the f32
+    conversion (which top_k sorts faster than int32) is lossless."""
+    return jax.lax.dot_general(
+        q_exp, db_exp, dimension_numbers=(((1,), (1,)), ((), ())),
         preferred_element_type=jnp.int32,
-    )  # [Q, N]
-    # top_k over int32 is pathologically slow on TPU; scores are bounded by
-    # m*S < 2^24 so the f32 conversion is lossless
-    scores = scores.astype(jnp.float32)
-    if approx:
-        # TPU-native bucketed top-k: 3.8 ms vs 21 ms for exact top_k at
-        # [1024, 65536].  The exact rerank downstream corrects ordering,
-        # and the caller widens nb_cand (see _search_batched) so the true
-        # top-k sit far from the approx boundary where the misses live.
-        # The barrier keeps the matmul/convert from fusing into the
-        # ApproxTopK input: fused, the compiler fails with "Wasn't able
-        # to find a valid iteration window" (standalone it compiles at
-        # every candidate width we use).
-        scores = jax.lax.optimization_barrier(scores)
-        _, cand = jax.lax.approx_max_k(
-            scores, nb_cand, recall_target=0.95, aggregate_to_topk=True)
-    else:
-        _, cand = jax.lax.top_k(scores, nb_cand)
+    ).astype(jnp.float32)
+
+
+@functools.partial(jax.jit, static_argnames=("nb_cand",))
+def _mxu_candidates(q_exp: jnp.ndarray, db_exp: jnp.ndarray, nb_cand: int):
+    _, cand = jax.lax.top_k(_sign_scores(q_exp, db_exp), nb_cand)
     return cand
 
 
-@functools.partial(jax.jit, static_argnames=("m", "knbn", "s_true", "approx"))
-def _search_estimator(q_sigs, db_exp, n_valid, *, m, knbn, s_true,
-                      approx=False):
+@functools.partial(jax.jit, static_argnames=("m", "knbn", "s_true"))
+def _search_estimator(q_sigs, db_exp, n_valid, *, m, knbn, s_true):
     """Estimator-only search: sign-dot scores -> masked top-k, NO rerank.
 
     The candidate POOL for callers that own a separate rerank tier (the
@@ -237,41 +234,24 @@ def _search_estimator(q_sigs, db_exp, n_valid, *, m, knbn, s_true,
     caller's tier re-scores.  Pad rows (id >= n_valid) are masked to
     -inf BEFORE top-k: unlike the fused path there is no downstream
     rerank to mask them out."""
-    q_exp = expand_signs(q_sigs, m=m)
-    scores = jax.lax.dot_general(
-        q_exp, db_exp, dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.int32,
-    ).astype(jnp.float32)
+    scores = _sign_scores(expand_signs(q_sigs, m=m), db_exp)
     col = jnp.arange(db_exp.shape[0], dtype=jnp.int32)
     scores = jnp.where((col < n_valid)[None, :], scores, -jnp.inf)
-    if approx:
-        # see _mxu_candidates: the barrier keeps the matmul from fusing
-        # into ApproxTopK's input (compile failure when fused); boundary
-        # misses sit at the pool edge, far from the true top-k the
-        # caller's rerank keeps
-        scores = jax.lax.optimization_barrier(scores)
-        neg, cand = jax.lax.approx_max_k(
-            scores, knbn, recall_target=0.95, aggregate_to_topk=True)
-    else:
-        neg, cand = jax.lax.top_k(scores, knbn)
+    neg, cand = jax.lax.top_k(scores, knbn)
     d = 1.0 - neg / (jnp.float32(m) * jnp.float32(s_true))
     return d, cand
 
 
-@functools.partial(
-    jax.jit, static_argnames=("knbn", "s_true", "use_pallas", "compact"))
+@functools.partial(jax.jit, static_argnames=("knbn", "s_true", "compact"))
 def _rerank(q_sigs: jnp.ndarray, db_rr3: jnp.ndarray, cand: jnp.ndarray,
             n_valid: jnp.ndarray, knbn: int, s_true: int,
-            use_pallas: bool = False, compact: bool = False):
+            compact: bool = False):
     """Equal-count distances on the candidate rows, then top-k.
 
     db_rr3 is the rerank matrix pre-shaped [N, 8, Sp/8]: the column-padded
     full signatures (db col pads 0; exact distances), or in compact mode
     the pair-packed 16-bit slot hashes [N, 8, Sp/16] (near-exact, see
-    module docstring).  On TPU candidate rows come through the pallas
-    row-DMA gather kernel: an XLA gather materializes all Q*C rows as one
-    HLO temp (13 GB at Q=4096, C=72, S=12000 — compile OOM), the kernel
-    streams them through a VMEM scratch instead."""
+    module docstring).  Candidate rows are scored by gather_eqcount."""
     qs = _as_u32(q_sigs)
     sp = db_rr3.shape[1] * db_rr3.shape[2]
     if compact:
@@ -281,51 +261,33 @@ def _rerank(q_sigs: jnp.ndarray, db_rr3: jnp.ndarray, cand: jnp.ndarray,
             [qs, jnp.ones((qs.shape[0], sp - qs.shape[1]), jnp.uint32)], axis=1)
     else:
         q_pad = qs
-    if use_pallas:
-        from .distance import gather_hamming_pallas
-
-        d = gather_hamming_pallas(db_rr3, q_pad, cand, s_true=s_true,
-                                  halves=compact)
-    else:
-        flat = db_rr3.reshape(db_rr3.shape[0], sp)
-        rows = jnp.take(flat, cand, axis=0)  # [Q, C, Sp]
-        if compact:
-            x = rows ^ q_pad[:, None, :]
-            eq = (((x & jnp.uint32(0xFFFF)) == 0).sum(axis=-1)
-                  + ((x >> jnp.uint32(16)) == 0).sum(axis=-1)).astype(jnp.float32)
-        else:
-            eq = (rows == q_pad[:, None, :]).sum(axis=-1).astype(jnp.float32)
-        d = 1.0 - eq / jnp.float32(s_true)
+    d = gather_eqcount(db_rr3, q_pad, cand, s_true=s_true,
+                       parts=2 if compact else 1)
     d = jnp.where(cand < n_valid, d, jnp.inf)
     neg, sel = jax.lax.top_k(-d, knbn)
     return -neg, jnp.take_along_axis(cand, sel, axis=1)
 
 
 @functools.partial(
-    jax.jit,
-    static_argnames=(
-        "m", "nb_cand", "knbn", "s_true", "use_pallas", "approx", "compact"))
+    jax.jit, static_argnames=("m", "nb_cand", "knbn", "s_true", "compact"))
 def _search_fused(q_sigs, db_exp, db_rr3, n_valid, *, m, nb_cand, knbn,
-                  s_true, use_pallas=False, approx=False, compact=False):
-    """One-dispatch search: expand + matmul candidates + rerank.
-
-    A single jit keeps the whole pipeline on device per call — in
-    relay/remote setups each extra dispatch costs a network round trip."""
+                  s_true, compact=False):
+    """One-dispatch search: expand + matmul candidates + rerank, with no
+    host round trip between the stages."""
     q_exp = expand_signs(q_sigs, m=m)
-    cand = _mxu_candidates(q_exp, db_exp, nb_cand, approx)
-    return _rerank(q_sigs, db_rr3, cand, n_valid, knbn, s_true, use_pallas,
-                   compact)
+    cand = _mxu_candidates(q_exp, db_exp, nb_cand)
+    return _rerank(q_sigs, db_rr3, cand, n_valid, knbn, s_true, compact)
 
 
 def planned_footprint(n: int, s: int, m: int = 4) -> Tuple[bool, int]:
     """(compact?, device bytes) the constructor would choose for [n, s]
     signatures — lets callers decide whether the SOURCE array can stay
-    resident in HBM next to the searcher's representations."""
+    resident on the device next to the searcher's representations."""
     nb = 16
     while nb < n:
         nb <<= 1
     spad_full = ((s + 1023) // 1024) * 1024
-    if nb * (m * s + 4 * spad_full) <= MxuSearcher.COMPACT_BYTES:
+    if nb * (m * s + 4 * spad_full) <= MxuSearcher.compact_bytes():
         return False, nb * (m * s + 4 * spad_full)
     spad = ((s + 2047) // 2048) * 2048
     return True, nb * (2 * s + 2 * spad)
@@ -334,14 +296,18 @@ def planned_footprint(n: int, s: int, m: int = 4) -> Tuple[bool, int]:
 class MxuSearcher:
     """Holds the expanded database on device; searches in two stages."""
 
-    # auto-switch to compact mode when the standard two representations
-    # would exceed this many bytes (leave HBM headroom for score/temp
-    # buffers on a 16 GB chip)
-    COMPACT_BYTES = 8_000_000_000
+    #: auto-switch to compact mode when the standard two representations
+    #: would exceed this share of one device's memory (the rest is headroom
+    #: for score and gather buffers)
+    COMPACT_FRACTION = 0.5
+
+    @classmethod
+    def compact_bytes(cls) -> int:
+        return device_profile().budget(cls.COMPACT_FRACTION)
 
     def __init__(self, sigs: np.ndarray, m: int = 4, rerank_factor: int = 8,
-                 approx: bool | None = None, compact: bool | None = None,
-                 nb_cand: int | None = None, estimator_only: bool = False):
+                 compact: bool | None = None, nb_cand: int | None = None,
+                 estimator_only: bool = False):
         self.s = sigs.shape[1]
         self.n = sigs.shape[0]
         self.estimator_only = bool(estimator_only)
@@ -354,7 +320,7 @@ class MxuSearcher:
             # device-resident signatures (e.g. straight from the on-device
             # sketcher): derive both representations with zero host hops.
             # Chunked like the host path: one-shot expansion materializes
-            # [N, S, m] u32 temps (11.7 GB at 65k x 12000 — HBM OOM).
+            # [N, S, m] u32 temps (11.7 GB at 65k x 12000).
             if pad:
                 sigs = jnp.concatenate(
                     [sigs, jnp.zeros((pad,) + sigs.shape[1:], sigs.dtype)], 0)
@@ -363,8 +329,7 @@ class MxuSearcher:
             chunks = (u[start : start + 8192] for start in range(0, nb, 8192))
         else:
             # ONE host->device pass: upload u32 row chunks and derive both
-            # device-resident representations from them.  Uploading the raw
-            # signatures twice doubled init time in relay/remote setups.
+            # device-resident representations from them.
             if pad:
                 sigs = np.concatenate(
                     [sigs, np.zeros((pad,) + sigs.shape[1:], sigs.dtype)], 0)
@@ -373,18 +338,17 @@ class MxuSearcher:
             chunks = (jnp.asarray(np.ascontiguousarray(u[start : start + 8192]))
                       for start in range(0, nb, 8192))
         self._fill(chunks, nb, spad)
-        self._finish_init(approx)
 
     def _resolve_mode(self, m: int, compact: bool | None):
         """Pick (n-bucket, column pad, expansion width) and set self.compact."""
         # pad N so every database size in a power-of-two bucket shares one
-        # compiled program (remote compiles are expensive here)
+        # compiled program
         nb = 16
         while nb < self.n:
             nb <<= 1
         spad_full = ((self.s + 1023) // 1024) * 1024
         if compact is None:
-            compact = nb * (m * self.s + 4 * spad_full) > self.COMPACT_BYTES
+            compact = nb * (m * self.s + 4 * spad_full) > self.compact_bytes()
         self.compact = bool(compact)
         if self.compact and m == 4:
             m = 2  # compact default: half-width expansion (see module doc)
@@ -432,15 +396,12 @@ class MxuSearcher:
 
     @classmethod
     def from_chunks(cls, chunk_iter, n: int, s: int, *, m: int = 4,
-                    rerank_factor: int = 8, approx: bool | None = None,
-                    compact: bool | None = None,
+                    rerank_factor: int = 8, compact: bool | None = None,
                     nb_cand: int | None = None) -> "MxuSearcher":
         """Build from an iterator of row chunks (each [8192, S] u32/f32,
         device or host; the final chunk may be short) without ever holding
         the full source matrix next to the searcher's representations —
-        the init path for databases near the HBM limit (262k x 12000 f32
-        is 12.6 GB on its own; source + both representations would need
-        ~25 GB resident at once)."""
+        the init path for databases near the device memory limit."""
         self = cls.__new__(cls)
         self.s = s
         self.n = n
@@ -466,7 +427,6 @@ class MxuSearcher:
                 rows = jnp.concatenate(
                     [rows, jnp.zeros((nb - n, s), jnp.uint32)], 0)
             self._fill(iter([rows]), nb, spad)
-            self._finish_init(approx)
             return self
 
         def padded_chunks():
@@ -487,20 +447,7 @@ class MxuSearcher:
                 yielded += 1
 
         self._fill(padded_chunks(), nb, spad)
-        self._finish_init(approx)
         return self
-
-    def _finish_init(self, approx):
-        self._use_pallas = jax.default_backend() == "tpu"
-        # approx_max_k candidate selection: default ON for big TPU
-        # databases (at [1024, 65536] it is 3.8 ms vs 21 ms for exact
-        # top_k; recall_target 0.95 at the widened candidate count keeps
-        # measured end-to-end recall@10 at 1.0 because the exact rerank
-        # re-scores a candidate list much wider than k).  approx=False
-        # forces exact selection (the recall oracle).
-        if approx is None:
-            approx = self._use_pallas and self.n >= 32768
-        self._approx = bool(approx)
 
     def search(self, queries, knbn: int) -> Tuple[np.ndarray, np.ndarray]:
         """queries: [Q, S] numpy OR device array (jax.Array) — serving paths
@@ -530,9 +477,9 @@ class MxuSearcher:
         return self._search_batched(q_dev, knbn, jnp)
 
     def _search_batched(self, q_dev, knbn, xp):
-        """Dispatch _search_fused in query chunks sized so the pallas
-        rerank's scalar-prefetched candidate operand [Qc, C] int32 fits
-        SMEM (1 MB/core; e.g. Q=4096 x C=72 x 4 B = 1.18 MB overflows)."""
+        """Dispatch _search_fused in query chunks sized so the rerank's
+        gathered candidate rows [Qc, C, L] u32 stay within
+        RERANK_WORKSET_FRACTION of the device's memory."""
         if self._rr3 is None:  # estimator-only: pool selection, no rerank
             nb = self._db_exp.shape[0]
             # bound the [Qc, N] score buffer: 128 queries x 1M cols f32 is
@@ -548,7 +495,7 @@ class MxuSearcher:
                                          + rows.shape[1:], rows.dtype)], 0)
                 d, i = _search_estimator(
                     _as_u32(rows), self._db_exp, jnp.int32(self.n),
-                    m=self.m, knbn=knbn, s_true=self.s, approx=self._approx)
+                    m=self.m, knbn=knbn, s_true=self.s)
                 ds.append(d)
                 ids.append(i)
             if len(ds) == 1:
@@ -558,31 +505,21 @@ class MxuSearcher:
         if self.nb_cand_override:
             # explicit candidate width (e.g. the bulk graph constructor's
             # wide-k sweeps, where the default knbn-proportional widening
-            # would blow the rerank kernel's scoped vmem)
+            # would gather far more rows than the pool needs)
             nb_cand = min(max(self.nb_cand_override, knbn), self._rr3.shape[0])
         else:
             nb_cand = min(max(self.rerank_factor * knbn, 64), self._rr3.shape[0])
-            if self._approx:
-                # widen the rerank list so approx_max_k's boundary misses
-                # stay clear of the true top-k (rerank DMA is bandwidth-
-                # bound and cheap relative to the 17 ms exact-top_k saving)
-                nb_cand = min(max(nb_cand + knbn * 4, 96), self._rr3.shape[0])
             if self.compact:
                 # m=2 halves the estimator's sign bits (noise sd grows
                 # sqrt(2)x): double the rerank list so the true top-k stay
                 # inside it
                 nb_cand = min(max(2 * nb_cand, 128), self._rr3.shape[0])
         qb = q_dev.shape[0]
-        # the SMEM allocation lane-pads the [Q, C] i32 operand to C->128k
-        cand_row_bytes = ((nb_cand + 127) // 128) * 128 * 4
-        chunk = 8
-        while chunk * 2 * cand_row_bytes <= _MAX_SMEM_CAND_BYTES and chunk < qb:
-            chunk <<= 1
+        chunk = rerank_chunk(qb, nb_cand, self._rr3[0].size)
         if chunk >= qb:
             return _search_fused(
                 q_dev, self._db_exp, self._rr3, jnp.int32(self.n),
                 m=self.m, nb_cand=nb_cand, knbn=knbn, s_true=self.s,
-                use_pallas=self._use_pallas, approx=self._approx,
                 compact=self.compact,
             )
         ds, ids = [], []
@@ -595,7 +532,6 @@ class MxuSearcher:
             d, i = _search_fused(
                 rows, self._db_exp, self._rr3, jnp.int32(self.n),
                 m=self.m, nb_cand=nb_cand, knbn=knbn, s_true=self.s,
-                use_pallas=self._use_pallas, approx=self._approx,
                 compact=self.compact,
             )
             ds.append(d)

@@ -6,7 +6,7 @@ pattern: a stream of darts (slot, key[, payload]) where two genomes sharing
 a k-mer produce identical darts, and the signature slot s keeps the dart
 with the minimal key among all darts aimed at s.  On CPU the reference
 implements each of these as a hash-table / heap inner loop inside
-probminhash (reference call sites: src/dna/dnasketch.rs:336,357); on TPU we
+probminhash (reference call sites: src/dna/dnasketch.rs:336,357); on the device we
 replace all of them with one batched lexicographic sort + run-head lookup —
 no scatters, no pointer chasing, fully MXU/VPU-friendly shapes.
 
@@ -104,7 +104,7 @@ def bucket_min_packed(
 ) -> RaceResult:
     """Fast path for payload-free races (OPH/OptDens): windowed top-K
     pre-reduction + one scatter-min.  No sorts, no gathers — both were
-    measured pathological on this TPU path (sorted-stream lookup gathers:
+    measured pathological on the earlier accelerator path (sorted-stream lookup gathers:
     ~700ms for 32x1M; plain scatter-min of every dart: ~370ms).
 
     Each dart packs as (key-high-bits | slot) in one u32 word, so a plain

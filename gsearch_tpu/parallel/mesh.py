@@ -8,32 +8,31 @@ search is "algorithmically equal" to one index).  Here that becomes a
 first-class jax.sharding design:
 
   * database signatures [N, S] are sharded over the mesh 'd' axis (each
-    chip holds a contiguous row shard — the analog of one bash "piece"),
+    device holds a contiguous row shard — the analog of one bash "piece"),
   * queries are replicated (they ride broadcast, tiny next to the db),
-  * each chip computes its local exact top-k with the fused distance
-    kernel, and the per-shard candidates are merged with an ICI all-gather
+  * each device computes its local exact top-k with the fused distance
+    kernel, and the per-shard candidates are merged with an all-gather
     + final lax.top_k — a few KB per query instead of re-sketching per
     shard as the scripts do,
   * genome sketching is data-parallel: code blocks shard over 'd' and the
-    dart race runs per-chip with no communication at all,
+    dart race runs per-device with no communication at all,
   * optionally the signature dimension S shards over a second mesh axis
-    's': each chip scores a slice of the sketch slots and the equal-counts
-    reduce with a psum over 's' before the top-k (useful when S is huge or
-    to overlap HBM reads across chips).
+    's': each device scores a slice of the sketch slots and the
+    equal-counts reduce with a psum over 's' before the top-k (useful when
+    S is huge or to overlap memory reads across devices).
 
-Everything is shard_map + XLA collectives; no NCCL/MPI translation.
+Everything is shard_map + XLA collectives (NCCL on GPUs); the devices of
+one host are joined all to all, so a 1-D mesh is the natural layout.
 """
 
 from __future__ import annotations
-
-
-
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
+from ..ops.distance import eq_to_dist, gather_eqcount
 from ..utils import get_logger
 
 log = get_logger(__name__)
@@ -42,15 +41,15 @@ log = get_logger(__name__)
 def initialize_multihost(coordinator: str | None = None,
                          num_processes: int | None = None,
                          process_id: int | None = None) -> int:
-    """Multi-host (DCN) bring-up: one call per host before building a mesh.
+    """Multi-host bring-up: one call per host before building a mesh.
 
     Wraps jax.distributed.initialize; afterwards jax.devices() spans every
-    host's chips and make_device_mesh lays the 'd' axis out so that
+    host's devices and make_device_mesh lays the 'd' axis out so that
     contiguous row shards stay host-local — the all_gather in the top-k
-    merge then rides ICI within a host and crosses DCN only once per hop
-    of the (tiny) per-shard candidate lists.  Arguments default to the
-    standard JAX env vars (COORDINATOR_ADDRESS etc.) so TPU pods with
-    preconfigured environments can call it with no arguments.
+    merge then stays within a host and crosses the network only once per
+    hop of the (tiny) per-shard candidate lists.  Pass coordinator
+    ("host:port"), num_processes and process_id explicitly wherever the
+    environment does not describe the cluster.
 
     Returns the process index.  Replaces the reference's "run the bash
     scripts on each machine by hand" scale-out story (README.md:402-413).
@@ -72,9 +71,9 @@ def make_device_mesh(n_devices: int | None = None, two_d: bool = False) -> Mesh:
     """1-D ('d',) or 2-D ('d','s') mesh over the first n devices.
 
     jax.devices() orders devices process-major, so the row-shard axis 'd'
-    keeps contiguous database shards on one host's chips — ICI-local
-    gathers, DCN only for the final candidate merge (multi-host runs must
-    call initialize_multihost first)."""
+    keeps contiguous database shards on one host's devices — host-local
+    gathers, the network only for the final candidate merge (multi-host
+    runs must call initialize_multihost first)."""
     devs = jax.devices()
     n = n_devices or len(devs)
     if two_d and n % 2 == 0 and n >= 4:
@@ -109,7 +108,7 @@ def sharded_knn(mesh: Mesh, s_total: int, knbn: int):
         eq = _local_eqcount(q_local, db_local)
         if has_s:
             eq = jax.lax.psum(eq, "s")  # combine sketch-dim partial counts
-        d = (jnp.float32(s_total) - eq) / jnp.float32(s_total)
+        d = eq_to_dist(eq, s_total)
         shard = jax.lax.axis_index("d")
         lids = (jnp.arange(db_local.shape[0], dtype=jnp.int32)
                 + shard * db_local.shape[0])
@@ -117,7 +116,7 @@ def sharded_knn(mesh: Mesh, s_total: int, knbn: int):
         k = min(knbn, db_local.shape[0])
         neg, idx = jax.lax.top_k(-d, k)
         gids = jnp.take(lids, idx)
-        # merge candidates across row shards over ICI
+        # merge candidates across row shards
         all_d = jax.lax.all_gather(-neg, "d", axis=1, tiled=True)  # [Q, D*k]
         all_g = jax.lax.all_gather(gids, "d", axis=1, tiled=True)
         neg2, sel = jax.lax.top_k(-all_d, knbn)
@@ -160,7 +159,7 @@ def sharded_sketch_and_knn_step(mesh: Mesh, sketcher, block_len: int, knbn: int)
         q = sigs_all
         eq = _local_eqcount(q.view(jnp.uint32) if q.dtype == jnp.float32 else q,
                             db_local.view(jnp.uint32) if db_local.dtype == jnp.float32 else db_local)
-        d = (jnp.float32(s_total) - eq) / jnp.float32(s_total)
+        d = eq_to_dist(eq, s_total)
         k = min(knbn, db_local.shape[0])
         neg, idx = jax.lax.top_k(-d, k)
         shard = jax.lax.axis_index("d")
@@ -182,10 +181,11 @@ class MeshSearcher:
     replacement for the reference's offline N-piece sharding
     (scripts/split_folder.sh + multiple_build.sh + multiple_search.sh,
     README.md:402-413): every device holds one contiguous shard of the
-    signature matrix, queries broadcast, per-shard top-k merges over ICI.
+    signature matrix, queries broadcast, per-shard top-k merges in one
+    all_gather.
 
     Works over any index kind's signature matrix (flat or hnsw — both
-    persist [N, S] sigs), and scales the database past one chip's HBM.
+    persist [N, S] sigs), and scales the database past one device's memory.
     Results are exact (recall 1.0)."""
 
     def __init__(self, sigs: np.ndarray, mesh: Mesh | None = None,
@@ -223,13 +223,12 @@ def shard_database(db: np.ndarray, mesh: Mesh) -> jax.Array:
 
 
 def sharded_mxu_knn(mesh: Mesh, s_total: int, knbn: int, *, m: int,
-                    nb_cand: int, use_pallas: bool):
-    """Sharded compact-MXU search step: every chip scores its row shard on
-    the MXU (sign-expansion estimator, ops/mxu.py), reranks its own
+                    nb_cand: int):
+    """Sharded compact int8-GEMM search step: every device scores its row
+    shard with the sign-expansion estimator (ops/mxu.py), reranks its own
     candidates from its packed-hash shard, and the per-shard top-k merge
-    rides one ICI all_gather — the multi-chip form of the compact searcher
-    (per-chip capacity ~262k x 12000; capacity AND throughput scale
-    linearly with chips).
+    rides one all_gather — the multi-device form of the compact searcher
+    (capacity AND throughput scale linearly with devices).
 
     step(exp_local [Nl, m*S] i8, rr_local [Nl, 8, Sp/16] u32,
          q [Q, S] u32 replicated, n_live) -> (d [Q, k], ids [Q, k])
@@ -246,8 +245,7 @@ def sharded_mxu_knn(mesh: Mesh, s_total: int, knbn: int, *, m: int,
         base = shard * exp_local.shape[0]
         k = min(knbn, exp_local.shape[0])
         d, sel = _rerank(q, rr_local, cand,
-                         jnp.int32(exp_local.shape[0]), k, s_total,
-                         use_pallas, True)
+                         jnp.int32(exp_local.shape[0]), k, s_total, True)
         gsel = sel + base
         d = jnp.where(gsel < n_live, d, jnp.inf)
         all_d = jax.lax.all_gather(d, "d", axis=1, tiled=True)  # [Q, D*k]
@@ -261,11 +259,11 @@ def sharded_mxu_knn(mesh: Mesh, s_total: int, knbn: int, *, m: int,
 
 
 class MeshMxuSearcher:
-    """Row-sharded compact-MXU k-NN: MeshSearcher's exact merge with the
-    single-chip compact searcher's per-shard scoring.  Each device holds
-    the m-bit sign expansion + packed 16-bit-hash rerank representation of
-    its row shard (48 KB/row at S=12000, m=2), so an 8-chip mesh serves
-    ~2M genomes at MXU throughput instead of the VPU sweep's.
+    """Row-sharded compact int8-GEMM k-NN: MeshSearcher's exact merge with
+    the single-device compact searcher's per-shard scoring.  Each device
+    holds the m-bit sign expansion + packed 16-bit-hash rerank
+    representation of its row shard (48 KB/row at S=12000, m=2), so
+    capacity and GEMM throughput scale with the devices of the mesh.
 
     Near-exact like compact mode: distances can differ from exact by
     ~2/S (16-bit hash collisions)."""
@@ -294,7 +292,7 @@ class MeshMxuSearcher:
         shd3 = jax.sharding.NamedSharding(self.mesh, P("d", None, None))
         exp = jax.device_put(np.zeros((nbig, s * m), np.int8), shd)
         rr3 = jax.device_put(np.zeros((nbig, 8, spad // 16), np.uint32), shd3)
-        # one shard_map init per row chunk: each chip expands+packs its
+        # one shard_map init per row chunk: each device expands+packs its
         # slice of the chunk locally (donated in-place writes)
         init = jax.jit(
             jax.shard_map(
@@ -323,7 +321,6 @@ class MeshMxuSearcher:
         self._exp = exp
         self._rr3 = rr3
         self._nl = nl
-        self._use_pallas = jax.default_backend() == "tpu"
         self._fns: dict = {}
 
     def search(self, queries: np.ndarray, knbn: int, ef_search: int = 0):
@@ -335,8 +332,7 @@ class MeshMxuSearcher:
         fn = self._fns.get(knbn)
         if fn is None:
             fn = self._fns[knbn] = sharded_mxu_knn(
-                self.mesh, self.s_total, knbn, m=self.m, nb_cand=nb_cand,
-                use_pallas=self._use_pallas)
+                self.mesh, self.s_total, knbn, m=self.m, nb_cand=nb_cand)
         d, ids = fn(self._exp, self._rr3, jnp.asarray(q), jnp.int32(self.n))
         # buffer index == original rank by construction (see __init__ chunk
         # placement), so ids need no remapping
@@ -346,14 +342,14 @@ class MeshMxuSearcher:
 class MeshGraphSearcher:
     """Graph traversal over a mesh: one shard_map dispatch searches every
     subgraph of a ShardedHnswIndex on its own device and merges the
-    per-shard top-k over ICI.
+    per-shard top-k in one all_gather.
 
     This is the ANN analog of MeshSearcher: MeshSearcher row-shards the
-    exact sweep (O(N/D) work per chip per query), this shards the GRAPHS —
-    per-chip work stays one beam traversal (O(ef log N/D)), so query
+    exact sweep (O(N/D) work per device per query), this shards the GRAPHS —
+    per-device work stays one beam traversal (O(ef log N/D)), so query
     throughput holds at corpus sizes where even the sharded exact sweep is
     bandwidth-bound, and capacity (signatures + neighbor arrays) scales
-    linearly with chips.  The mesh must have exactly index.n_shards devices
+    linearly with devices.  The mesh must have exactly index.n_shards devices
     on its 'd' axis (build with that shard count — the pipeline does)."""
 
     def __init__(self, index, mesh: Mesh | None = None,
@@ -387,17 +383,13 @@ class MeshGraphSearcher:
             nbrs_p[i, :n] = np.where(sh._nbrs == -1, nb, sh._nbrs)
             entries[i, : len(sh._entry_ids)] = sh._entry_ids
             full[i, :n, : self.s_true] = _as_u32(sh._sigs)
-        sh4 = jax.sharding.NamedSharding(self.mesh, P("d", None, None, None))
         sh3 = jax.sharding.NamedSharding(self.mesh, P("d", None, None))
         sh2 = jax.sharding.NamedSharding(self.mesh, P("d", None))
         sh1 = jax.sharding.NamedSharding(self.mesh, P("d"))
         self.d_sigs = jax.device_put(sigs_p, sh3)
         self.d_nbrs = jax.device_put(nbrs_p, sh3)
         self.d_entries = jax.device_put(entries, sh2)
-        # pre-shaped [8, Sp/8] rows for the pallas gather kernel (an
-        # in-graph reshape would layout-copy the whole shard matrix)
-        self.d_full = jax.device_put(
-            full.reshape(d, nb + 1, 8, spad // 8), sh4)
+        self.d_full = jax.device_put(full, sh3)
         self.d_nlive = jax.device_put(n_live, sh1)
         self.nb = nb
         self.m0 = m0
@@ -415,7 +407,6 @@ class MeshGraphSearcher:
         expand = self.index.shards[0].EXPAND
         hops = max(8, int(2 * math.log2(nb)) + ef_round // expand)
         r = min(_round_up(max(4 * knbn, 32), 8), ef_round)
-        use_pallas = jax.default_backend() == "tpu"
 
         def step(sigs_p, nbrs_p, entries, nlive, full, q_p, q_full):
             sigs_l, nbrs_l = sigs_p[0], nbrs_p[0]
@@ -423,14 +414,7 @@ class MeshGraphSearcher:
             beam_ids, _ = _beam(sigs_l, nbrs_l, ents_l, q_p, n,
                                 ef=ef_round, hops=hops, expand=expand)
             ids = beam_ids[:, :r]
-            if use_pallas:
-                from ..ops.distance import gather_hamming_pallas
-
-                dist = gather_hamming_pallas(full_l, q_full, ids, s_true=s_true)
-            else:
-                rows = jnp.take(full_l.reshape(full_l.shape[0], -1), ids, axis=0)
-                eq = (rows == q_full[:, None, :]).sum(-1).astype(jnp.float32)
-                dist = (jnp.float32(s_true) - eq) / jnp.float32(s_true)
+            dist = gather_eqcount(full_l, q_full, ids, s_true=s_true)
             dist = jnp.where(ids < n, dist, jnp.inf)
             k_local = min(knbn, r)
             neg, sel = jax.lax.top_k(-dist, k_local)
@@ -443,7 +427,7 @@ class MeshGraphSearcher:
             return -neg2, jnp.take_along_axis(all_g, sel2, axis=1)
 
         in_specs = (P("d", None, None), P("d", None, None), P("d", None),
-                    P("d"), P("d", None, None, None), P(None, None),
+                    P("d"), P("d", None, None), P(None, None),
                     P(None, None))
         out_specs = (P(None, None), P(None, None))
         fn = jax.shard_map(step, mesh=self.mesh, in_specs=in_specs,

@@ -1,25 +1,34 @@
-"""Persistent XLA compilation cache setup (used by CLI, bench, tests).
+"""Persistent XLA compilation cache setup (used by the CLI, bench and tests).
 
-In this environment XLA compilation is serviced remotely and can take
-seconds to minutes per executable; the on-disk cache amortizes that to one
-compile per (program, shape) ever.
+`JAX_COMPILATION_CACHE_DIR`, when set, is the cache and no other directory
+is configured.  Otherwise the cache lives at a fixed directory inside the
+checkout (`.jax_cache/`, git-ignored), so repeated runs from one checkout
+reuse each compiled program.
 """
 
 import os
 
 import jax
 
-_DEFAULT_DIR = os.path.expanduser("~/.cache/jax_comp_cache")
+DEFAULT_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    ".jax_cache")
 _DONE = False
 
 
-def enable_compilation_cache(path: str | None = None) -> None:
+def cache_dir() -> str:
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or DEFAULT_DIR
+
+
+def enable_compilation_cache() -> str:
+    """Point JAX's persistent cache at cache_dir(); returns the directory."""
     global _DONE
+    path = cache_dir()
     if _DONE:
-        return
-    path = path or os.environ.get("JAX_COMPILATION_CACHE_DIR", _DEFAULT_DIR)
+        return path
     os.makedirs(path, exist_ok=True)
     jax.config.update("jax_compilation_cache_dir", path)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.1)
     jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
     _DONE = True
+    return path

@@ -3,7 +3,7 @@
 // Role parity: the reference leans on needletail (Rust) for FASTA parsing
 // and kmerutils' Alphabet2b for 2-bit encoding (reference call sites:
 // src/dna/dnafiles.rs:52,70-72; src/aa/aafiles.rs:11-28).  This is the
-// C++ equivalent feeding the TPU ingest pipeline: one pass over the
+// C++ equivalent feeding the device ingest pipeline: one pass over the
 // (already decompressed) byte buffer, emitting uint8 symbol codes
 // (DNA 0..3 / AA 0..19, 255 = invalid) with single-separator joins
 // between records, "capsid" records skipped (dnafiles.rs:67), and

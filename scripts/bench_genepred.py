@@ -218,30 +218,30 @@ def main():
     # The quality genome above is deliberately small so the 27-point sweep
     # stays cheap; real FragGeneScanRs-style usage is one multi-Mb genome,
     # where the windowed batched Viterbi amortizes its compiles.  A warm-up
-    # call on a slice populates the program cache (on a TPU VM the on-disk
-    # compilation cache makes even the first run warm), then the full
+    # call on a slice populates the program cache (the on-disk compilation
+    # cache makes even the first run warm), then the full
     # genome is timed cold-start-excluded AND included.
-    tput_mb = float(os.environ.get("GENEPRED_TPUT_MB", "2"))
+    thrpt_mb = float(os.environ.get("GENEPRED_THROUGHPUT_MB", "2"))
     big_seq, big_truth = build_genome(
-        np.random.default_rng(0x5CA1E), int(tput_mb * 1000), density)
+        np.random.default_rng(0x5CA1E), int(thrpt_mb * 1000), density)
     t0 = time.time()
     predict_genes(big_seq[: 300_000], GenePredParams())  # warm-up slice
     t_warmup = time.time() - t0
     t0 = time.time()
     big_pred = predict_genes(big_seq, GenePredParams())
     dt_big = time.time() - t0
-    tput = {"genome_nt": len(big_seq), "wall_s": round(dt_big, 2),
+    thrpt = {"genome_nt": len(big_seq), "wall_s": round(dt_big, 2),
             "nt_per_s": round(len(big_seq) / dt_big),
             "warmup_s": round(t_warmup, 2),
             "nt_per_s_incl_warmup": round(len(big_seq) / (dt_big + t_warmup))}
-    tput.update(score(big_pred, big_truth))
-    log(f"throughput {tput_mb} Mb: {tput['nt_per_s']} nt/s "
-        f"({tput['nt_per_s_incl_warmup']} incl. {t_warmup:.0f}s warmup); "
-        f"f1={tput['f1']}")
+    thrpt.update(score(big_pred, big_truth))
+    log(f"throughput {thrpt_mb} Mb: {thrpt['nt_per_s']} nt/s "
+        f"({thrpt['nt_per_s_incl_warmup']} incl. {t_warmup:.0f}s warmup); "
+        f"f1={thrpt['f1']}")
 
     out = {"genome_nt": len(seq), "coding_density_requested": density,
            "heldout": heldout,
-           "in_distribution": base, "throughput": tput,
+           "in_distribution": base, "throughput": thrpt,
            "note": ("HEADLINE = heldout.*.self_trained (usages the model "
                     "never saw, called via the shipped `-t self` "
                     "organism-adaptive path; bars f1>=0.85, start>=0.7 "

@@ -1,12 +1,10 @@
-"""262k-genome exact-rerank search on ONE chip: the compact MxuSearcher.
+"""262k-genome exact-rerank search on ONE device: the compact MxuSearcher.
 
-Round-1 story: 262k x 12000 f32 (12.6 GB) exceeded what the two standard
-MXU-searcher representations could hold in 16 GB HBM, so searches at that
-scale fell back to the graph index (~460 qps) or a 66-qps chunked exact
-sweep.  Compact mode (ops/mxu.py: m=2 sign expansion + pair-packed 16-bit
-slot hashes, 48 KB/row) fits the whole database, restoring the MXU
-full-sweep path at reference-RefSeq scale (~318k genomes,
-/root/reference/README.md:134).
+Compact mode (ops/mxu.py: m=2 sign expansion + pair-packed 16-bit slot
+hashes, 48 KB/row) holds a 262k x 12000 database in a fraction of the
+memory of the two standard representations, keeping the int8-GEMM
+full-sweep path at reference-RefSeq scale (~318k genomes, reference
+README.md:134).
 
 Measures: init time, qps (Q=1024 device-resident), recall@10 on planted
 neighbors, and the rerank-distance error vs an exact host recompute of the

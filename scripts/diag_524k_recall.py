@@ -120,6 +120,3 @@ def main():
 
 if __name__ == "__main__":
     main()
-    sys.stdout.flush()
-    sys.stderr.flush()
-    os._exit(0)

@@ -1,7 +1,7 @@
 #!/bin/bash
 # Build one database per shard folder (role of the reference's
 # scripts/multiple_build.sh). Shards build sequentially here — a single
-# TPU chip serializes them anyway; across hosts, run one invocation per
+# device serializes them anyway; across hosts, run one invocation per
 # host.
 #
 # Usage: multiple_build.sh <shards_dir> <out_dir> [tohnsw args...]

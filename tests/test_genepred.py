@@ -98,7 +98,7 @@ def _make_cds(rng, n_codons, favored):
 def test_trained_dicodon_model_recovers_genes():
     """train_from_cds -> CG-binned dicodon model; planted genes drawn from
     the SAME generator as training (but fresh) are recovered with high
-    sensitivity and precision (VERDICT round-1 item 5)."""
+    sensitivity and precision."""
     from gsearch_tpu.models.genepred import GeneModel
 
     rng = np.random.default_rng(10)
@@ -359,7 +359,7 @@ def test_fgs_train_dir_malformed(tmp_path):
 def test_self_training_recovers_unseen_usage():
     """Self-training fixes a usage the built-in prior has never seen: a
     synonymous-permuted table (the exact signal the default encodes,
-    destroyed).  The round-4 VERDICT bar: held-out F1 >= 0.85 and start
+    destroyed).  The target bar: held-out F1 >= 0.85 and start
     accuracy >= 0.7 come from the full 100kb benchmark
     (scripts/bench_genepred.py); this scaled-down version asserts the
     mechanism (self-training strictly beats the prior and crosses

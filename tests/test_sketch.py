@@ -205,8 +205,8 @@ def test_submit_long_multiplicity_sensitive(rng):
 
 
 def test_probminhash_streaming_bias():
-    """Streamed (piece-wise) ProbMinHash vs one-block oracle
-    (VERDICT round-1 weak item 6).  A k-mer split across pieces races with
+    """Streamed (piece-wise) ProbMinHash vs one-block oracle.  A k-mer
+    split across pieces races with
     max(per-piece count) instead of the total; J_P's scale invariance
     absorbs uniform duplication, so realistic (low/uniform-duplication)
     genomes must show NO bias, and the adversarial half-duplicated layout

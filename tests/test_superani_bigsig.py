@@ -98,7 +98,7 @@ def test_bigsi_minimizer_mode_and_io(rng, tmp_path):
 
 def test_seedchain_mutation_ladder_accuracy(rng):
     """skani-grade claim: chained seed-identity ANI within ~0.5 of the
-    planted mutation truth across a ladder (VERDICT round-1 item 6)."""
+    planted mutation truth across a ladder."""
     from gsearch_tpu.models.seedchain import SeedChainer
     from gsearch_tpu.io.codec import encode_dna
 
